@@ -3,7 +3,7 @@
 // (ref contract: script/synthetic_FF_map_single_thread.py:27-35 — argtypes
 // [int32*, f64*, f64*, f64*, f64*, f64*, f64*] -> int, PyGET_MW symbol).
 //
-// Physics identical to raytracinggrff_tpu/grff/physics.py (the float64
+// Physics identical to raytracinggrff_jax/grff/physics.py (the float64
 // parity reference): Appleton-Hartree magnetoionic modes, Dulk (1985)
 // free-free opacity with piecewise Coulomb logarithm, Saha neutral-hydrogen
 // collisional term (mechanism flag 4), per-voxel source areas (Parms[14]),
@@ -82,7 +82,7 @@ double gyro_coupling(double X, double Y, double theta, double sigma) {
 
 // Thermal gyroresonance opacity summed over harmonics s=2..s_max [cm^-1]
 // (mechanism flag 2, Parms[7] harmonic cap). Same Gaussian-layer form as
-// raytracinggrff_tpu/grff/physics.py:
+// raytracinggrff_jax/grff/physics.py:
 //   kappa_s = (pi^2/(2c)) (nu_p^2/nu) F_sigma(theta) s^2 (s^2 beta^2
 //             sin^2/2)^(s-1) / s!  *  s nu_B Gauss(nu - s nu_B)
 // with the exact F_sigma above; |cos theta| floored at 0.01 in the line

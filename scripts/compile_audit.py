@@ -1,28 +1,35 @@
 #!/usr/bin/env python
-"""Per-variant compile-cost audit for the canonical trace workload.
+"""Per-program compile-cost audit for the canonical imaging pipeline.
 
-Measures where cold-start wall time goes before the first pixel: every
-XLA/Mosaic compilation triggered by the canonical bench trace
-(256^2 rays x 5000 steps, seg_records segments) is captured from JAX's
-compile logs with its duration, and the persistent-compilation-cache hit
-state is reported per entry.
+Measures where cold-start wall time goes before the first pixel: every XLA
+compilation triggered by one canonical map (256^2 rays x 5000 steps x
+128^3 cube, trace + LOS sample + GRFF transfer over --nfreq frequencies,
+bench.py's Newkirk cube) is captured from JAX's compile logs with its
+duration.
 
 Usage:
-    python scripts/compile_audit.py --cache fresh   # cold: empty cache dir
-    python scripts/compile_audit.py --cache warm    # reuse default cache
-    python scripts/compile_audit.py --seg-records 64 ...
+    python scripts/compile_audit.py --cache fresh   # cold: empty the cache
+    python scripts/compile_audit.py --cache warm    # reuse the cache
 
-Prints one JSON line: {"mode", "warmup_s", "compiles": [{name, s}...],
-"total_compile_s", "n_compiles"} and a human table on stderr.
+`fresh` empties <checkout>/.jax_cache, the cache used when
+JAX_COMPILATION_CACHE_DIR is unset, and refuses to run while that variable
+names another directory (it will not empty a cache it does not own).
+
+Prints one JSON line: {"mode", "device", "warmup_s", "compiles":
+[{name, s}...], "total_compile_s", "n_compiles"} and a table on stderr.
 """
 
 import argparse
 import json
 import logging
+import os
 import re
+import shutil
 import sys
-import tempfile
 import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
 
 
 class CompileLogCapture(logging.Handler):
@@ -50,23 +57,30 @@ def main():
     p.add_argument("--n-pix", type=int, default=256)
     p.add_argument("--n-steps", type=int, default=5000)
     p.add_argument("--grid-n", type=int, default=128)
-    p.add_argument("--seg-records", type=int, default=16)
-    p.add_argument("--rpt", type=int, default=128)
+    p.add_argument("--nfreq", type=int, default=3)
     args = p.parse_args()
 
-    import jax
+    sys.path.insert(0, str(ROOT))
     if args.cache == "fresh":
-        cache_dir = tempfile.mkdtemp(prefix="jax_cc_cold_")
-    else:
-        cache_dir = "/root/.cache/jax_comp_cache"
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+        own = str(ROOT / ".jax_cache")
+        given = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+        if given and os.path.abspath(given) != own:
+            p.error(f"--cache fresh empties {own}; unset "
+                    f"JAX_COMPILATION_CACHE_DIR (now {given!r}) first")
+        shutil.rmtree(own, ignore_errors=True)
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from bench import make_cube
+    from raytracinggrff_jax.pipeline import (RayEmissionConfig,
+                                             run_ray_tracing_emission)
+    from raytracinggrff_jax.utils.device import device_record
     jax.config.update("jax_explain_cache_misses", True)
 
     cap = CompileLogCapture()
     # handler on the "jax" parent ONLY: attaching to child loggers too
-    # double-counts every record (children propagate to the parent),
-    # which doubled total_compile_s in the first audit artifacts
+    # double-counts every record (children propagate to the parent)
     for name in ("jax._src.interpreters.pxla", "jax._src.compiler",
                  "jax._src.dispatch"):
         logging.getLogger(name).setLevel(logging.DEBUG)
@@ -74,35 +88,17 @@ def main():
     root.setLevel(logging.DEBUG)
     root.addHandler(cap)
 
-    sys.path.insert(0, ".")
-    from bench import make_cube, make_rays
-    import numpy as np
-    from raytracinggrff_tpu.tracer_pallas import (iter_tail_traces,
-                                                  iter_trace_segments)
-
     grid, omega_pe, ne = make_cube(args.grid_n, 75e6)
-    te = np.full_like(ne, 1.4e6)
-    b = np.ones_like(ne)
-    start, kdir = make_rays(args.n_pix)
-
-    import jax.numpy as jnp
-
-    @jax.jit
-    def accum(a, recs):        # one chained dispatch per segment (as bench.py)
-        return a + recs[-1, 0, 0]
-
+    cubes = {"omega_pe": jnp.asarray(omega_pe), "ne": jnp.asarray(ne),
+             "te": jnp.asarray(np.full_like(ne, 1.4e6)),
+             "b": jnp.asarray(np.ones_like(ne))}
+    cfg = RayEmissionConfig(n_pix=args.n_pix, freq_hz=75e6,
+                            grid_n=args.grid_n, grid_extent=3.0,
+                            z_observer=3.0, n_steps=args.n_steps,
+                            nfreq=args.nfreq, freq_log_step=0.05,
+                            s_input_on=True)
     t0 = time.perf_counter()
-    stats = {}
-    acc = jnp.zeros((), jnp.float32)
-    for recs in iter_trace_segments(
-            omega_pe, ne, te, b, grid, 75e6, start, kdir, 6e-3,
-            args.n_steps, 10, trace_crosssections=True, perturb_ratio=2.0,
-            rpt=args.rpt, seg_records=args.seg_records, stats=stats):
-        acc = accum(acc, recs)
-    float(acc)
-    for _, _, recs_t in iter_tail_traces(stats, omega_pe, ne, te, b, grid,
-                                         6e-3, 10, True, 2.0):
-        float(recs_t[-1, 0, 0])
+    run_ray_tracing_emission(config=cfg, cubes=cubes, verbose=False)
     warmup_s = time.perf_counter() - t0
 
     xla = [(n, s) for k, n, s in cap.entries if k == "xla"]
@@ -115,11 +111,11 @@ def main():
         print(f"  {s:8.2f}s  {n}", file=sys.stderr)
     print(json.dumps({
         "mode": args.cache,
-        "seg_records": args.seg_records,
-        "warmup_s": round(warmup_s, 1),
+        "device": device_record(),
+        "warmup_s": warmup_s,
         "n_compiles": len(xla),
-        "total_compile_s": round(total, 1),
-        "compiles": [{"name": n, "s": round(s, 2)} for n, s in xla],
+        "total_compile_s": total,
+        "compiles": [{"name": n, "s": s} for n, s in xla],
     }))
 
 

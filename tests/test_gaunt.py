@@ -9,11 +9,11 @@ under 2% (optically-thick pixels saturate to T_e regardless of kappa).
 
 import numpy as np
 
-from raytracinggrff_tpu.grff.physics import (KAPPA_FF_COEF,
+from raytracinggrff_jax.grff.physics import (KAPPA_FF_COEF,
                                              KAPPA_FF_EXACT_COEF,
                                              coulomb_log, exact_gaunt,
                                              freefree_kappa)
-from raytracinggrff_tpu.grff.transfer import grff_transfer
+from raytracinggrff_jax.grff.transfer import grff_transfer
 
 AREA = (0.045 * 6.957e10) ** 2
 
@@ -49,7 +49,7 @@ def test_exact_prefactor_first_principles():
 def test_exact_gaunt_blackbody_saturation():
     """An optically thick isothermal slab must radiate T_b = T_e with the
     exact Gaunt factor too (source function is Gaunt-independent)."""
-    from raytracinggrff_tpu.grff.transfer import tb_from_sfu
+    from raytracinggrff_jax.grff.transfer import tb_from_sfu
     nz = 30
     te0 = 1.2e6
     ds = np.full((nz, 1), 1e11)
@@ -67,7 +67,7 @@ def test_exact_gaunt_blackbody_saturation():
 def test_tb_drift_dulk_vs_exact_under_2pct():
     """Quiet-Sun-like LOS (tau ~ 1 transition): T_b drift between the two
     Gaunt treatments stays below 2% even where kappa differs by ~5%."""
-    from raytracinggrff_tpu.grff.transfer import tb_from_sfu
+    from raytracinggrff_jax.grff.transfer import tb_from_sfu
     nz = 80
     # hydrostatic-ish falloff crossing tau ~ 1 inside the slab
     h = np.arange(nz)

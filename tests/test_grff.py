@@ -6,16 +6,16 @@ Analytic anchors:
   * optically thin slab -> T_b ~= tau * T with the Dulk kappa
   * evanescent voxel blocks a mode
   * invalid voxels contribute nothing (compaction equivalence)
-  * float32 TPU path vs float64 NumPy reference within 1% (parity target)
+  * float32 JAX path vs float64 NumPy reference within 1% (parity target)
 """
 
 import numpy as np
 
-from raytracinggrff_tpu.constants import AU_CM, C_CGS, KB_CGS, SFU2CGS
-from raytracinggrff_tpu.grff.physics import (
+from raytracinggrff_jax.constants import AU_CM, C_CGS, KB_CGS, SFU2CGS
+from raytracinggrff_jax.grff.physics import (
     coulomb_log, freefree_kappa, refractive_index_sq, KAPPA_FF_COEF)
-from raytracinggrff_tpu.grff.reference import grff_transfer_reference
-from raytracinggrff_tpu.grff.transfer import (
+from raytracinggrff_jax.grff.reference import grff_transfer_reference
+from raytracinggrff_jax.grff.transfer import (
     get_mw, get_mw_slice, grff_transfer, log_spaced_freqs, tb_from_sfu)
 
 AREA = (0.045 * 6.957e10) ** 2  # ~64-pix over 2.88 Rsun pixel area, cm^2
@@ -94,7 +94,7 @@ def test_invalid_voxels_equal_compaction():
 
 
 def test_parity_vs_float64_reference():
-    """TPU float32 path within 1% of the float64 CPU reference (the
+    """JAX float32 path within 1% of the float64 CPU reference (the
     BASELINE.md parity target)."""
     rng = np.random.default_rng(7)
     nz, n_pix = 80, 16

@@ -3,10 +3,10 @@ the exact magnetoionic polarization coupling."""
 
 import numpy as np
 
-from raytracinggrff_tpu.grff.physics import (gyro_polarization_coupling,
+from raytracinggrff_jax.grff.physics import (gyro_polarization_coupling,
                                              gyroresonance_kappa,
                                              refractive_index_sq)
-from raytracinggrff_tpu.grff.transfer import grff_transfer
+from raytracinggrff_jax.grff.transfer import grff_transfer
 
 AREA = (0.045 * 6.957e10) ** 2
 

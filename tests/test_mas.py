@@ -4,10 +4,10 @@ unit conversion, interpolation accuracy, cube resampling conventions."""
 import numpy as np
 import pytest
 
-from raytracinggrff_tpu.constants import MAS_UNITS
-from raytracinggrff_tpu.grids import UniformGrid
-from raytracinggrff_tpu.mas.hdf4 import read_hdf4_sds, write_hdf4_sds
-from raytracinggrff_tpu.mas.model import (
+from raytracinggrff_jax.constants import MAS_UNITS
+from raytracinggrff_jax.grids import UniformGrid
+from raytracinggrff_jax.mas.hdf4 import read_hdf4_sds, write_hdf4_sds
+from raytracinggrff_jax.mas.model import (
     MASModel, MASVariable, resample_var_to_cube, synthetic_mas_model)
 
 

@@ -9,8 +9,8 @@ import shutil
 import numpy as np
 import pytest
 
-from raytracinggrff_tpu.grff.reference import grff_transfer_reference
-from raytracinggrff_tpu.grff.transfer import get_mw
+from raytracinggrff_jax.grff.reference import grff_transfer_reference
+from raytracinggrff_jax.grff.transfer import get_mw
 
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
                                 reason="g++ not available")
@@ -31,7 +31,7 @@ def _pack(ds, te, ne, b, s_area=None, theta=90.0, mech=5):
 
 
 def test_native_matches_numpy_reference():
-    from raytracinggrff_tpu.grff.native import get_mw_native
+    from raytracinggrff_jax.grff.native import get_mw_native
     rng = np.random.default_rng(0)
     nz, nf = 60, 4
     ds = rng.uniform(5e8, 5e9, nz)
@@ -58,7 +58,7 @@ def test_native_matches_numpy_reference():
 
 
 def test_native_matches_jax_get_mw():
-    from raytracinggrff_tpu.grff.native import get_mw_native
+    from raytracinggrff_jax.grff.native import get_mw_native
     nz, nf = 30, 3
     parms = _pack(np.full(nz, 2e9), np.full(nz, 1e6), np.full(nz, 3e8),
                   np.full(nz, 2.0))
@@ -74,7 +74,7 @@ def test_native_reference_script_style_call():
     """Exercise the exact reference calling convention (ctypes, F-order
     arrays, dummy T/DEM/DDM scalars; synthetic_FF_map_single_thread.py
     :189-219)."""
-    from raytracinggrff_tpu.grff.native import init_get_mw
+    from raytracinggrff_jax.grff.native import init_get_mw
     import numpy as np
     GET_MW = init_get_mw()
     nz, nf = 20, 2
@@ -91,7 +91,7 @@ def test_native_reference_script_style_call():
 def test_native_gyroresonance_matches_jax():
     """mech flag 2 (gyroresonance) must be honored by the .so, not silently
     dropped — harmonic layers near s*nu_B change both mode fluxes."""
-    from raytracinggrff_tpu.grff.native import get_mw_native
+    from raytracinggrff_jax.grff.native import get_mw_native
     nz, nf = 5, 3
     parms = _pack(np.full(nz, 1e8), np.full(nz, 2e6), np.full(nz, 1e9),
                   np.full(nz, 200.0), theta=60.0, mech=1 + 2 + 4)
@@ -137,7 +137,7 @@ def test_ddm_inputs_rejected_and_dem_validated():
     inputs are loud errors, and the reference's dummy-scalar convention
     (synthetic_FF_map_single_thread.py:203-208) still selects the
     uniform-T path."""
-    from raytracinggrff_tpu.grff.native import get_mw_native
+    from raytracinggrff_jax.grff.native import get_mw_native
     nz, nf = 6, 2
     parms = _pack(np.full(nz, 1e9), np.full(nz, 1e6), np.full(nz, 1e8),
                   np.full(nz, 1.0))
@@ -192,23 +192,20 @@ def _dem_case(nz=20, nt=40, nf=3):
     return t_grid, dem, parms, lparms, rparms
 
 
-def test_dem_mode_matches_float64_quadrature_oracle():
-    """JAX DEM transfer vs an independent float64 trapezoid quadrature of
-    the same kernel-moment definition + scalar RT recursion."""
-    t_grid, dem, parms, lparms, rparms = _dem_case()
-    nz, nf, nt = int(lparms[0]), int(lparms[1]), int(lparms[2])
-    freqs = rparms[1] * 10 ** (rparms[2] * np.arange(nf))
-    rl = get_mw(lparms, rparms, parms, t=t_grid, dem=dem)
-
-    # ---- float64 oracle ----
-    from raytracinggrff_tpu.constants import (AU_CM, C_CGS, FB_COEF,
+def _dem_oracle(t_grid, dem, parms, lparms, rparms):
+    """Independent float64 trapezoid quadrature of the DEM kernel moments +
+    scalar RT recursion: {RL row: flux} for the O (5) and X (6) modes."""
+    from raytracinggrff_jax.constants import (AU_CM, C_CGS, FB_COEF,
                                               FPE_COEF, KB_CGS, SFU2CGS)
-    from raytracinggrff_tpu.grff.physics import (KAPPA_FF_COEF, coulomb_log,
+    from raytracinggrff_jax.grff.physics import (KAPPA_FF_COEF, coulomb_log,
                                                  refractive_index_sq)
+    nz, nf = int(lparms[0]), int(lparms[1])
+    freqs = rparms[1] * 10 ** (rparms[2] * np.arange(nf))
     w = np.concatenate([[t_grid[1] - t_grid[0]],
                         t_grid[2:] - t_grid[:-2],
                         [t_grid[-1] - t_grid[-2]]]) / 2.0
-    theta = np.deg2rad(70.0)
+    theta = np.deg2rad(parms[4, 0])
+    out = {}
     for m_i, sigma in ((5, 1.0), (6, -1.0)):
         flux = np.zeros(nf)
         for k in range(nz):
@@ -229,9 +226,36 @@ def test_dem_mode_matches_float64_quadrature_oracle():
                    * AREA / AU_CM ** 2)
             flux = flux * np.exp(-tau) + src * -np.expm1(-tau)
             flux = np.where(n2 <= 0, 0.0, flux)
+        out[m_i] = flux
+    return out
+
+
+def test_dem_mode_matches_float64_quadrature_oracle():
+    """JAX DEM transfer vs an independent float64 trapezoid quadrature of
+    the same kernel-moment definition + scalar RT recursion."""
+    t_grid, dem, parms, lparms, rparms = _dem_case()
+    rl = get_mw(lparms, rparms, parms, t=t_grid, dem=dem)
+    for m_i, flux in _dem_oracle(t_grid, dem, parms, lparms,
+                                 rparms).items():
         np.testing.assert_allclose(rl[m_i], flux, rtol=2e-3,
                                    err_msg=f"mode RL[{m_i}]")
     assert np.all(rl[5] > 0)
+
+
+def test_dem_moments_run_at_highest_precision():
+    """The DEM moment products are the program's only matrix products; on
+    a GPU they would run in TF32 (~3 digits) unless asked for HIGHEST."""
+    import jax
+    from raytracinggrff_jax.grff.physics import dem_freefree_moments
+    t_grid, dem, _, _, rparms = _dem_case()
+    nu = rparms[1] * 10 ** (rparms[2] * np.arange(3))
+    jaxpr = jax.make_jaxpr(
+        lambda d: dem_freefree_moments(t_grid, d, nu))(dem)
+    dots = [e for e in jaxpr.jaxpr.eqns if e.primitive.name == "dot_general"]
+    assert len(dots) == 2
+    for e in dots:
+        assert e.params["precision"] == (jax.lax.Precision.HIGHEST,
+                                         jax.lax.Precision.HIGHEST)
 
 
 def test_dem_delta_function_reduces_to_uniform_t():
@@ -261,7 +285,7 @@ def test_dem_delta_function_reduces_to_uniform_t():
     np.testing.assert_allclose(rl_dem[6], rl_uni[6], rtol=2e-3)
 
     # C++ shim: same DEM call, identical physics (float64 twin)
-    from raytracinggrff_tpu.grff.native import get_mw_native
+    from raytracinggrff_jax.grff.native import get_mw_native
     rl_native = get_mw_native(lp_dem, rparms, parms, t=t_grid, dem=dem)
     np.testing.assert_allclose(rl_native[5], rl_dem[5], rtol=2e-3)
     np.testing.assert_allclose(rl_native[6], rl_dem[6], rtol=2e-3)
@@ -270,7 +294,7 @@ def test_dem_delta_function_reduces_to_uniform_t():
 def test_dem_mode_native_matches_jax_mixed_mech():
     """DEM free-free + per-voxel gyro/neutral bits through both the JAX
     path and the C++ shim."""
-    from raytracinggrff_tpu.grff.native import get_mw_native
+    from raytracinggrff_jax.grff.native import get_mw_native
     t_grid, dem, parms, lparms, rparms = _dem_case(nz=16, nt=30, nf=2)
     parms[6, :8] = 1 + 4
     parms[6, 8:12] = 1 + 2
@@ -288,7 +312,7 @@ def test_get_mw_per_voxel_mechanism_mixed_los():
     must run through both the JAX path and the C++ shim with identical
     results (the shim already reads mech per column,
     native/grff_transfer.cpp)."""
-    from raytracinggrff_tpu.grff.native import get_mw_native
+    from raytracinggrff_jax.grff.native import get_mw_native
     nz, nf = 24, 3
     te = np.concatenate([np.full(8, 8e3), np.full(16, 1.4e6)])   # chromo+corona
     ne = np.concatenate([np.full(8, 2e10), np.full(16, 4e8)])
@@ -312,7 +336,7 @@ def test_get_mw_per_voxel_mechanism_mixed_los():
     assert np.max(np.abs(rl_all[5] - rl_jax[5])) > 0
 
     # a uniform per-voxel mech array equals the scalar fast path exactly
-    from raytracinggrff_tpu.grff.transfer import grff_transfer
+    from raytracinggrff_jax.grff.transfer import grff_transfer
     freqs = 200e6 * 10 ** (0.1 * np.arange(nf))
     common = dict(ds=parms[0, :, None], te=parms[1, :, None],
                   ne=parms[2, :, None], b=parms[3, :, None],

@@ -4,10 +4,10 @@ ROI spectra CLI (capability of ref script/pub/compare_ovro_Tb_spec.py)."""
 import numpy as np
 import pytest
 
-from raytracinggrff_tpu.constants import R_SUN_M
-from raytracinggrff_tpu.utils.fits import (read_fits_bintable,
+from raytracinggrff_jax.constants import R_SUN_M
+from raytracinggrff_jax.utils.fits import (read_fits_bintable,
                                            write_fits_image)
-from raytracinggrff_tpu.utils.obs import load_multiband_observation
+from raytracinggrff_jax.utils.obs import load_multiband_observation
 
 
 def _obs_cube(nb=4, n=32):
@@ -75,7 +75,7 @@ def _write_model_sweep(out_dir, freqs_hz, n=24, tb0=4e5):
 
 
 def test_obs_spectrum_cli(tmp_path):
-    from raytracinggrff_tpu.cli.obs_spectrum import main
+    from raytracinggrff_jax.cli.obs_spectrum import main
 
     freqs = np.array([20e6, 40e6, 60e6, 80e6])
     _write_model_sweep(tmp_path, freqs)
@@ -100,7 +100,7 @@ def test_obs_spectrum_cli(tmp_path):
 
 
 def test_obs_spectrum_model_only(tmp_path):
-    from raytracinggrff_tpu.cli.obs_spectrum import main
+    from raytracinggrff_jax.cli.obs_spectrum import main
 
     _write_model_sweep(tmp_path, np.array([30e6, 50e6]))
     out = tmp_path / "spec.png"

@@ -24,8 +24,8 @@ script/pub/compare_ovro_Tb_spec.py:192, plot_Tb_spec.ipynb cell 1.)
 import numpy as np
 import pytest
 
-from raytracinggrff_tpu.constants import R_SUN_CM
-from raytracinggrff_tpu.grff.transfer import grff_transfer, tb_from_sfu
+from raytracinggrff_jax.constants import R_SUN_CM
+from raytracinggrff_jax.grff.transfer import grff_transfer, tb_from_sfu
 
 AREA = (0.1 * R_SUN_CM) ** 2
 

@@ -6,8 +6,8 @@ Physics sanity anchor (BASELINE.md): quiet-Sun T_b should land in the
 import numpy as np
 import pytest
 
-from raytracinggrff_tpu.mas.model import synthetic_mas_model
-from raytracinggrff_tpu.pipeline import (
+from raytracinggrff_jax.mas.model import synthetic_mas_model
+from raytracinggrff_jax.pipeline import (
     RayEmissionConfig, resample_mas_los, run_ray_tracing_emission,
     synthetic_ff)
 
@@ -79,9 +79,9 @@ def test_s_input_on_changes_map(corona):
                   grid_extent=2.5, z_observer=2.5, dt=1e-2, n_steps=300,
                   record_stride=10, nfreq=1)
     cubes = None
-    from raytracinggrff_tpu.grids import UniformGrid
-    from raytracinggrff_tpu.mas.model import MASModel
-    from raytracinggrff_tpu.pipeline import prepare_cubes
+    from raytracinggrff_jax.grids import UniformGrid
+    from raytracinggrff_jax.mas.model import MASModel
+    from raytracinggrff_jax.pipeline import prepare_cubes
     grid = UniformGrid.cube(2.5, 40)
     cubes = prepare_cubes(MASModel(corona), grid, 0.0, verbose=False)
     r_off = run_ray_tracing_emission(cubes=cubes, verbose=False,
@@ -100,8 +100,8 @@ def test_s_input_on_changes_map(corona):
 def test_polar_cuts_and_plot(corona, tmp_path):
     """plot_model.py capability: equatorial + meridional polar cuts off the
     native MAS mesh, with the reference's phi=0-vs-180 tie-break."""
-    from raytracinggrff_tpu.cli.plot_model_slices import main, polar_cuts
-    from raytracinggrff_tpu.mas.model import MASModel
+    from raytracinggrff_jax.cli.plot_model_slices import main, polar_cuts
+    from raytracinggrff_jax.mas.model import MASModel
 
     var = MASModel(corona)["rho"]
     cuts = polar_cuts(var, r_max=3.0)
@@ -122,13 +122,24 @@ def test_polar_cuts_and_plot(corona, tmp_path):
     assert rc == 0 and out.exists()
 
 
-def test_pallas_rejects_per_step_s_mode(corona):
-    """Explicit pallas + per_step must raise, not silently return
-    cumulative S (the kernel implements only the GPU-reference cumulative
-    semantics; the CPU-reference per-step path lives on the XLA tracer,
-    build_rays.py:241-244)."""
-    cfg = RayEmissionConfig(n_pix=4, freq_hz=80e6, grid_n=24, n_steps=20,
-                            s_mode="per_step", tracer_backend="pallas")
-    with pytest.raises(ValueError, match="per_step"):
-        run_ray_tracing_emission(model_path=corona, config=cfg,
-                                 verbose=False)
+def test_per_step_s_mode_runs_through_pipeline(corona):
+    """s_mode='per_step' (the CPU reference's instantaneous S,
+    build_rays.py:241-244) runs on the one pipeline path and, with the S
+    input on, gives another finite map than the cumulative default."""
+    common = dict(n_pix=6, x_fov=1.2, freq_hz=150e6, grid_n=40,
+                  grid_extent=2.5, z_observer=2.5, dt=1e-2, n_steps=300,
+                  record_stride=10, nfreq=1, s_input_on=True)
+    from raytracinggrff_jax.grids import UniformGrid
+    from raytracinggrff_jax.mas.model import MASModel
+    from raytracinggrff_jax.pipeline import prepare_cubes
+    cubes = prepare_cubes(MASModel(corona), UniformGrid.cube(2.5, 40), 0.0,
+                          verbose=False)
+    per = run_ray_tracing_emission(cubes=cubes, verbose=False,
+                                   config=RayEmissionConfig(
+                                       s_mode="per_step", **common))
+    cum = run_ray_tracing_emission(cubes=cubes, verbose=False,
+                                   config=RayEmissionConfig(**common))
+    a, b = per["emission_cube"], cum["emission_cube"]
+    assert a.shape == (6, 6, 1) and np.isfinite(a).all()
+    assert (a > 1e4).any()
+    assert not np.allclose(a, b)

@@ -1,6 +1,6 @@
 """Independent parity against the ACTUAL reference implementation.
 
-Every other parity test in this repo compares the TPU stack to oracles built
+Every other parity test in this repo compares the JAX stack to oracles built
 from the same formulas by the same author (grff/reference.py, float64 numpy),
 which cannot catch a shared semantic error. This suite instead imports the
 real CPU reference from /root/reference — `ray_trace`
@@ -15,7 +15,7 @@ the same synthetic cubes, and asserts:
   * LOS sampler parity: ne/te/b/ds/valid_mask including injected s=0,
     s=NaN, NaN-position and out-of-bounds records
   * end-to-end T_b parity of the trace+sample stages: the same GRFF
-    transfer fed by reference-produced vs TPU-produced LOS data
+    transfer fed by reference-produced vs JAX-produced LOS data
   * NaN patcher exact equality (sequential in-pass propagation order)
 
 plus a canary proving the trajectory test has teeth: a deliberately injected
@@ -44,12 +44,12 @@ from raytracingGRFF import util as ref_util  # noqa: E402
 
 import jax.numpy as jnp  # noqa: E402
 
-from raytracinggrff_tpu.grff.transfer import get_mw_slice, tb_from_sfu  # noqa: E402
-from raytracinggrff_tpu.grids import UniformGrid  # noqa: E402
-from raytracinggrff_tpu.sampler import sample_model_with_rays_arrays  # noqa: E402
-from raytracinggrff_tpu.tracer import (  # noqa: E402
+from raytracinggrff_jax.grff.transfer import get_mw_slice, tb_from_sfu  # noqa: E402
+from raytracinggrff_jax.grids import UniformGrid  # noqa: E402
+from raytracinggrff_jax.sampler import sample_model_with_rays_arrays  # noqa: E402
+from raytracinggrff_jax.tracer import (  # noqa: E402
     pack_trace_table, trace_rays, trace_rays_from_cube)
-from raytracinggrff_tpu.utils.nanpatch import patch_nan_emission_map  # noqa: E402
+from raytracinggrff_jax.utils.nanpatch import patch_nan_emission_map  # noqa: E402
 
 
 # ---------------------------------------------------------------------------
@@ -110,7 +110,7 @@ def ref_trace(scene):
 
 
 @pytest.fixture(scope="module")
-def tpu_trace(scene):
+def jax_trace(scene):
     g, omega_pe, _, _, _ = scene
     x0, y0, z0, kdir = _rays()
     r_rec, s_rec = trace_rays_from_cube(
@@ -120,19 +120,19 @@ def tpu_trace(scene):
     return np.asarray(r_rec), np.asarray(s_rec)
 
 
-def test_trajectory_parity_vs_reference(ref_trace, tpu_trace):
-    """r_record of the float32 TPU tracer vs the float64 scipy reference.
+def test_trajectory_parity_vs_reference(ref_trace, jax_trace):
+    """r_record of the float32 JAX tracer vs the float64 scipy reference.
 
     Frozen entries are NaN in the reference (RegularGridInterpolator OOB)
     but hold the last in-bounds position here; compare where the reference
     is finite."""
     r_ref, _ = ref_trace
-    r_tpu, _ = tpu_trace
-    assert r_ref.shape == r_tpu.shape == (N_STEPS // STRIDE, 9, 3)
+    r_jax, _ = jax_trace
+    assert r_ref.shape == r_jax.shape == (N_STEPS // STRIDE, 9, 3)
 
     finite = np.isfinite(r_ref).all(axis=2)
     assert finite.any(axis=0).all(), "every ray must have finite records"
-    err = np.linalg.norm(r_tpu - r_ref, axis=2)
+    err = np.linalg.norm(r_jax - r_ref, axis=2)
     max_err = np.nanmax(np.where(finite, err, 0.0))
     # float32 vs float64 over 600 RK4 steps through a refracting sphere
     assert max_err < 2e-3, f"trajectory diverged: max |dr| = {max_err}"
@@ -142,10 +142,10 @@ def test_trajectory_parity_vs_reference(ref_trace, tpu_trace):
     # moving; ours must stop at the same place
     moved_ref = np.linalg.norm(np.diff(np.nan_to_num(r_ref[:, -1]), axis=0),
                                axis=1)
-    moved_tpu = np.linalg.norm(np.diff(r_tpu[:, -1], axis=0), axis=1)
+    moved_jax = np.linalg.norm(np.diff(r_jax[:, -1], axis=0), axis=1)
     frozen_from_ref = np.argmax(moved_ref < 1e-9)
-    frozen_from_tpu = np.argmax(moved_tpu < 1e-9)
-    assert abs(int(frozen_from_ref) - int(frozen_from_tpu)) <= 1
+    frozen_from_jax = np.argmax(moved_jax < 1e-9)
+    assert abs(int(frozen_from_ref) - int(frozen_from_jax)) <= 1
 
 
 def test_trajectory_parity_has_teeth(scene, ref_trace):
@@ -171,7 +171,7 @@ def test_trajectory_parity_has_teeth(scene, ref_trace):
         f"has no teeth (max err {max_err})")
 
 
-def test_per_step_s_parity(ref_trace, tpu_trace):
+def test_per_step_s_parity(ref_trace, jax_trace):
     """Cross-section S, per-step semantics (build_rays.py:241-244).
 
     S is a second-derivative quantity of a chaotic map, so compare in
@@ -179,12 +179,12 @@ def test_per_step_s_parity(ref_trace, tpu_trace):
     inside the cube."""
     _, s_ref = ref_trace
     r_ref, _ = ref_trace
-    _, s_tpu = tpu_trace
-    assert s_ref.shape == s_tpu.shape
+    _, s_jax = jax_trace
+    assert s_ref.shape == s_jax.shape
 
     finite = np.isfinite(s_ref) & np.isfinite(r_ref).all(axis=2)
     assert finite.sum() > 0.5 * s_ref.size
-    rel = np.abs(s_tpu - s_ref) / np.maximum(np.abs(s_ref), 1e-6)
+    rel = np.abs(s_jax - s_ref) / np.maximum(np.abs(s_ref), 1e-6)
     # early/mid records must agree tightly; allow the worst late-time
     # chaotic tail more slack but keep the bulk pinned
     assert np.median(rel[finite]) < 1e-3
@@ -230,10 +230,10 @@ def test_sampler_parity_vs_reference(scene, los_inputs):
                                rtol=2e-4, atol=1.0)
 
 
-def test_tb_parity_end_to_end(scene, ref_trace, tpu_trace):
+def test_tb_parity_end_to_end(scene, ref_trace, jax_trace):
     """<=1% T_b parity of the trace+sample stages against the actual CPU
     reference: the SAME GRFF transfer consumes (a) reference-traced and
-    reference-sampled LOS data and (b) TPU-traced and TPU-sampled LOS data;
+    reference-sampled LOS data and (b) JAX-traced and JAX-sampled LOS data;
     the resulting brightness-temperature maps must agree to 1%."""
     g, _, ne, te, b = scene
     x0, y0, z0, _ = _rays()
@@ -263,12 +263,12 @@ def test_tb_parity_end_to_end(scene, ref_trace, tpu_trace):
         return np.asarray(tb)
 
     r_ref, s_ref = ref_trace
-    r_tpu, s_tpu = tpu_trace
+    r_jax, s_jax = jax_trace
     tb_ref = tb_map(r_ref, s_ref, "ref")
-    tb_tpu = tb_map(r_tpu, s_tpu, "tpu")
+    tb_jax = tb_map(r_jax, s_jax, "jax")
 
     assert np.all(tb_ref[:-1] > 1e4), "scene must produce real emission"
-    rel = np.abs(tb_tpu - tb_ref) / np.maximum(tb_ref, 1.0)
+    rel = np.abs(tb_jax - tb_ref) / np.maximum(tb_ref, 1.0)
     assert np.max(rel[:-1]) < 0.01, (
         f"T_b parity vs CPU reference broken: max rel diff {np.max(rel[:-1])}")
 

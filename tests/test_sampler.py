@@ -4,7 +4,7 @@ valid-mask propagation, and ds anchoring across invalid gaps."""
 
 import numpy as np
 
-from raytracinggrff_tpu.sampler import sample_model_with_rays_arrays
+from raytracinggrff_jax.sampler import sample_model_with_rays_arrays
 
 
 def _make_synth_case(seed=0):

@@ -2,7 +2,7 @@
 (BASELINE config 4).
 
 The reference hardwires Parms[4] = 90 deg (resample_with_ray_tracing.py:
-489-501); the TPU framework additionally samples the B *vector* along rays
+489-501); this framework additionally samples the B *vector* along rays
 and feeds per-voxel theta to the transfer. Tests:
 
   * the spherical->image-frame B rotation against an analytic dipole,
@@ -11,15 +11,14 @@ and feeds per-voxel theta to the transfer. Tests:
     O/X handedness swap must mirror the V map),
   * theta_mode='los' with zero B vector reduces exactly to the
     theta = 90 'fixed' behavior (regression for strict reference parity),
-  * streamed Pallas kernel (8-channel sample cube, record row 7) matches
-    the XLA record pipeline with theta_mode='los'.
+  * theta_mode='los' sharded over a device mesh matches one device.
 """
 
 import numpy as np
 import pytest
 
-from raytracinggrff_tpu.grids import UniformGrid
-from raytracinggrff_tpu.pipeline import (RayEmissionConfig,
+from raytracinggrff_jax.grids import UniformGrid
+from raytracinggrff_jax.pipeline import (RayEmissionConfig,
                                          _bvec_image_cubes,
                                          run_ray_tracing_emission)
 
@@ -99,7 +98,7 @@ def test_stokes_v_antisymmetric_across_equator(dipole_cubes):
     moment in the plane of sky), and be nonzero at a few-G field."""
     res = run_ray_tracing_emission(
         cubes=dipole_cubes, verbose=False,
-        config=RayEmissionConfig(tracer_backend="xla", theta_mode="los",
+        config=RayEmissionConfig(theta_mode="los",
                                  **_COMMON))
     tb = res["emission_cube"]
     pol = res["emission_polVI_cube"]
@@ -122,9 +121,9 @@ def test_theta_los_zero_b_matches_fixed(dipole_cubes):
     cubes0 = dict(dipole_cubes)
     z = jnp.zeros_like(cubes0["ne"])
     cubes0["bvec"] = (z, z, z)
-    cfg_fixed = RayEmissionConfig(tracer_backend="xla", theta_mode="fixed",
+    cfg_fixed = RayEmissionConfig(theta_mode="fixed",
                                   **_COMMON)
-    cfg_los = RayEmissionConfig(tracer_backend="xla", theta_mode="los",
+    cfg_los = RayEmissionConfig(theta_mode="los",
                                 **_COMMON)
     r_fixed = run_ray_tracing_emission(cubes=dipole_cubes, verbose=False,
                                        config=cfg_fixed)
@@ -136,30 +135,21 @@ def test_theta_los_zero_b_matches_fixed(dipole_cubes):
                                r_fixed["emission_polVI_cube"], atol=1e-6)
 
 
-def test_streamed_theta_los_matches_xla(dipole_cubes):
-    """The Pallas kernel's record-row-7 cos(theta) (sampled from the
-    8-channel cube against the wave vector) must yield the same V map as
-    the XLA path. Both backends now use the INSTANTANEOUS wave vector at
-    the record step (trace_rays(record_k=True) / kernel row 7) — the old
-    stride-long forward difference gave a ~10% V amplitude offset here and
-    broke Tb parity outright under gyroresonance, whose opacity is
-    exponential in theta at a harmonic layer. Measured on this scene the
-    unified semantics agree to ~2e-7 in V of a +-1.1e-2 signal."""
-    r_xla = run_ray_tracing_emission(
-        cubes=dipole_cubes, verbose=False,
-        config=RayEmissionConfig(tracer_backend="xla", theta_mode="los",
-                                 **_COMMON))
-    r_pal = run_ray_tracing_emission(
-        cubes=dipole_cubes, verbose=False,
-        config=RayEmissionConfig(tracer_backend="pallas",
-                                 pallas_interpret=True, seg_records=20,
-                                 theta_mode="los", **_COMMON))
-    a = r_xla["emission_cube"]
-    b = r_pal["emission_cube"]
-    lit = (a > 1e4) & (b > 1e4)
-    assert lit.sum() > 20
-    np.testing.assert_allclose(b[lit], a[lit], rtol=2e-4)
-    pa = r_xla["emission_polVI_cube"][lit]
-    pb = r_pal["emission_polVI_cube"][lit]
-    np.testing.assert_allclose(pb, pa, atol=5e-6)
-    assert np.corrcoef(pa, pb)[0, 1] > 0.9999
+def test_theta_los_sharded_matches_single_device(dipole_cubes):
+    """theta_mode='los' over a (4, 2) mesh: the B-vector table is
+    replicated, the wave-vector records shard with the rays, and the
+    signed V/I map matches one device."""
+    import jax
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 virtual devices")
+    from raytracinggrff_jax.parallel.mesh import make_mesh
+    cfg = RayEmissionConfig(theta_mode="los", **_COMMON)
+    one = run_ray_tracing_emission(cubes=dipole_cubes, verbose=False,
+                                   config=cfg)
+    got = run_ray_tracing_emission(cubes=dipole_cubes, verbose=False,
+                                   config=cfg, mesh=make_mesh(4, 2))
+    np.testing.assert_allclose(got["emission_cube"], one["emission_cube"],
+                               rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(got["emission_polVI_cube"],
+                               one["emission_polVI_cube"], atol=1e-6)
+    assert np.max(np.abs(one["emission_polVI_cube"])) > 1e-4

@@ -6,10 +6,11 @@ overdense barrier (omega_pe > omega)."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
-from raytracinggrff_tpu.constants import C_R
-from raytracinggrff_tpu.grids import UniformGrid
-from raytracinggrff_tpu.tracer import (
+from raytracinggrff_jax.constants import C_R
+from raytracinggrff_jax.grids import UniformGrid
+from raytracinggrff_jax.tracer import (
     pack_trace_table, trace_rays, trace_rays_from_cube, gradient_cubes)
 
 
@@ -127,7 +128,7 @@ def test_energy_conservation_refraction():
     res = trace_rays(table, grid, freq, start, kdir, 2e-3, 2000, 100)
     state = np.asarray(res.final_state)[0]
     pos, kvec = state[:3], state[3:]
-    from raytracinggrff_tpu.ops.trilinear import trilinear_sample
+    from raytracinggrff_jax.ops.trilinear import trilinear_sample
     wpe, _ = trilinear_sample(jnp.asarray(cube), grid,
                               np.float32([pos[0]]), np.float32([pos[1]]),
                               np.float32([pos[2]]), fill_value=0.0)
@@ -171,3 +172,32 @@ def test_record_k_wave_vectors():
     # default stays None (no extra record memory unless asked)
     res0 = trace_rays(table, grid, freq, start, kdir, 1e-3, 40, 10)
     assert res0.k_record is None
+
+
+@pytest.mark.parametrize("n_steps,stride", [(50, 10), (47, 10), (12, 4)])
+def test_record_schedule(n_steps, stride):
+    """Record i is taken after step 1 + i*stride, ceil(n_steps/stride)
+    records in all (the reference's i % stride == 0 schedule), on a
+    refracting scene so that every step moves the rays differently."""
+    grid = UniformGrid.cube(2.0, 25)
+    xs, ys, zs = grid.axes()
+    x, y, z = np.meshgrid(xs, ys, zs, indexing="ij")
+    r = np.sqrt(x * x + y * y + z * z)
+    table = pack_trace_table(
+        jnp.asarray((1e9 * np.exp(-(r - 1.0) / 0.5)).astype(np.float32)),
+        grid)
+    start = np.array([[0.3, -0.2, 1.9], [1.2, 0.4, 1.9]], np.float32)
+    kdir = np.tile(np.array([[0.0, 0.0, -1.0]], np.float32), (2, 1))
+    every = trace_rays(table, grid, 150e6, start, kdir, 5e-3, n_steps, 1,
+                       trace_crosssections=True)
+    strided = trace_rays(table, grid, 150e6, start, kdir, 5e-3, n_steps,
+                         stride, trace_crosssections=True)
+    n_rec = -(-n_steps // stride)
+    assert strided.r_record.shape == (n_rec, 2, 3)
+    # stride-1 record j is after step 1 + j
+    want = np.asarray(every.r_record)[::stride]
+    np.testing.assert_allclose(np.asarray(strided.r_record), want,
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(strided.s_record),
+                               np.asarray(every.s_record)[::stride],
+                               rtol=1e-5)

@@ -6,8 +6,8 @@ NaN (trilinear_packed) or a fill value (trilinear_sample)."""
 import numpy as np
 import jax.numpy as jnp
 
-from raytracinggrff_tpu.grids import UniformGrid
-from raytracinggrff_tpu.ops.trilinear import (
+from raytracinggrff_jax.grids import UniformGrid
+from raytracinggrff_jax.ops.trilinear import (
     pack_fields, trilinear_packed, trilinear_sample)
 
 

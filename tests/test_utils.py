@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from raytracinggrff_tpu.utils.beam import gaussian_beam_convolve
-from raytracinggrff_tpu.utils.fits import load_observation_map, read_fits_image
-from raytracinggrff_tpu.utils.nanpatch import patch_nan_emission_map
+from raytracinggrff_jax.utils.beam import gaussian_beam_convolve
+from raytracinggrff_jax.utils.fits import load_observation_map, read_fits_image
+from raytracinggrff_jax.utils.nanpatch import patch_nan_emission_map
 
 
 def _reference_patch_2d(a, max_passes=10):
@@ -125,8 +125,8 @@ def test_sdo_context_cli(tmp_path):
     """3-panel context figure from local FITS (plot_SDO_context.py parity
     given local inputs; fetching is out of scope)."""
     pytest.importorskip("matplotlib")
-    from raytracinggrff_tpu.cli.sdo_context import main
-    from raytracinggrff_tpu.utils.fits import write_fits_image
+    from raytracinggrff_jax.cli.sdo_context import main
+    from raytracinggrff_jax.utils.fits import write_fits_image
 
     rng = np.random.default_rng(3)
     write_fits_image(tmp_path / "a304.fits", rng.uniform(0, 255, (32, 32)))
